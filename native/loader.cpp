@@ -1,7 +1,7 @@
 // Native data loader: high-throughput FASTQ/FASTA parsing + base encoding.
 //
 // The reference pipeline's I/O hot path is C (BWA's kseq.h FASTQ reader,
-// SURVEY.md section 2.2); this is the TPU-framework equivalent: parse +
+// SURVEY.md section 2.2); this is this framework's equivalent: parse +
 // encode straight into the padded int8 code tensors the device consumes
 // (A0 C1 G2 T3, N/other 4), no intermediate Python string objects.
 // Exposed as a plain C ABI consumed via ctypes (rambl_tpu/io/loader.py);

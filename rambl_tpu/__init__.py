@@ -1,12 +1,12 @@
-"""rambl_tpu — a TPU-native full-length 16S rRNA gene assembly engine.
+"""rambl_tpu — a full-length 16S rRNA gene assembly engine in JAX, for GPUs.
 
 A from-scratch rebuild of the capabilities of homopolymer/RAMBL (a
-Python/BWA/SAMtools pipeline; see SURVEY.md) designed TPU-first:
+Python/BWA/SAMtools pipeline; see SURVEY.md) as jitted device code:
 
-- BWA-MEM subprocess alignment   -> hashed k-mer seeding + banded affine-gap
-                                    Smith-Waterman wavefront (Pallas kernels,
-                                    `rambl_tpu.ops`)
-- samtools sort/index/mpileup    -> dense on-chip alignment tensors + scatter-add
+- BWA-MEM subprocess alignment   -> hashed k-mer seeding + affine-gap
+                                    Smith-Waterman (a Pallas kernel for the
+                                    score pass, `rambl_tpu.ops`)
+- samtools sort/index/mpileup    -> dense on-device alignment tensors + scatter-add
                                     pileup (`rambl_tpu.pipeline.consensus`)
 - taxonomic binning (python)     -> vectorized LCA segment-reduce
                                     (`rambl_tpu.pipeline.binning`)
@@ -17,7 +17,7 @@ Python/BWA/SAMtools pipeline; see SURVEY.md) designed TPU-first:
                                     (`rambl_tpu.parallel`)
 
 The pure-NumPy oracle in `rambl_tpu.oracle` is the executable specification:
-every TPU component must match it bit-for-bit (SURVEY.md section 4.2).
+every device component must match it bit-for-bit (SURVEY.md section 4.2).
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,8 @@
 
 Subcommands:
   simulate  - generate a mock community (FASTA refs + FASTQ reads + truth)
-  assemble  - run the full TPU assembly pipeline on reads vs a reference DB
-  bench     - alignment/SW microbenchmarks on the local chip
+  assemble  - run the full device assembly pipeline on reads vs a reference DB
+  bench     - alignment/SW microbenchmarks on the local GPU
 
 `assemble` consumes a reference FASTA with a Greengenes-style taxonomy TSV
 (name<TAB>k__...;p__...;...) or falls back to one leaf per reference.
@@ -286,7 +286,7 @@ def main(argv=None) -> int:
     a.add_argument("--preset", choices=sorted(PRESETS))
     a.add_argument("--config", help="PipelineConfig JSON file")
     a.add_argument("--oracle", action="store_true",
-                   help="run the NumPy oracle instead of the TPU path")
+                   help="run the NumPy oracle instead of the device path")
     a.add_argument("--metrics", help="JSONL metrics output path")
     a.add_argument("--checkpoint", help="write final panel checkpoint here")
     a.add_argument("--resume-from", help="panel checkpoint to resume from: "

@@ -2,7 +2,7 @@
 
 The reference (homopolymer/RAMBL, SURVEY.md L1) drives BWA/samtools with CLI
 flags; here every knob that affects output bits lives in one frozen dataclass so
-that the NumPy oracle and the TPU path consume *identical* parameters and the
+that the NumPy oracle and the device path consume *identical* parameters and the
 pipeline is reproducible across runs, device counts and shardings
 (SURVEY.md section 4.2 determinism requirement).
 
@@ -37,7 +37,7 @@ class ScoringParams:
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     # ---- read/reference geometry (static shapes; SURVEY.md section 7.4.2) ----
-    read_len_max: int = 128          # reads padded to this length (sublane axis)
+    read_len_max: int = 128          # reads padded to this length
     window_margin: int = 16          # ref window = read_len_max + 2*margin
     ref_len_max: int = 2048          # max reference/consensus sequence length
 
@@ -50,12 +50,10 @@ class PipelineConfig:
 
     # ---- alignment ----
     scoring: ScoringParams = dataclasses.field(default_factory=ScoringParams)
-    sw_impl: str = "auto"            # "auto" | "pallas" | "scan": score-pass
-                                     # kernel (auto = pallas on TPU backends)
-    # Pallas score kernel computes only this many query rows (0 = all
+    # the SW score pass computes only this many query rows (0 = all
     # read_len_max). EXACT whenever every read's length fits (pad rows can
     # never win the DP - ops/sw_pallas.py docstring proof); 100bp reads in
-    # the default 128-pad layout waste 23% of the wavefront otherwise.
+    # the default 128-pad layout waste 23% of the DP otherwise.
     # Must be a multiple of 8 and >= the longest real read; the streaming
     # driver asserts this against the actual read lengths.
     sw_rows: int = 0
@@ -77,7 +75,7 @@ class PipelineConfig:
     # ---- DP-means clustering ----
     # DP-means spawn threshold lambda as an exact rational num/den so that all
     # distance comparisons are integer (diff * den vs num * ncov) - float
-    # rounding must never differ between the NumPy oracle and the f32 TPU path
+    # rounding must never differ between the NumPy oracle and the device path
     dp_lambda_num: int = 3
     dp_lambda_den: int = 10
     dp_spawn_min_orphans: int = 3    # orphans consistent with a seed orphan
@@ -200,8 +198,7 @@ class PipelineConfig:
     # single-device cluster member gather: pack (query, ref_col) retention
     # into one int16 array ((rc+1)*8+q <= 16391 since ref_len_max=2048 and
     # base codes are 0..4) hoisted once per round, so each leaf block does
-    # ONE 256B-row gather instead of two (128B int8 + 256B int16) - the
-    # gather is descriptor-bound on this target (CLAUDE.md rule of thumb).
+    # ONE 256B-row gather instead of two (128B int8 + 256B int16).
     # Unpacking after the gather is exact integer arithmetic: bitwise
     # identical members. Costs one extra (B, L) int16 buffer, so the driver
     # only engages it when B <= packed_member_gather_max_reads.
@@ -210,12 +207,6 @@ class PipelineConfig:
     batch_size: int = 1024           # reads per device batch (global)
     mesh_data_axis: str = "data"
     shard_index: bool = False        # False: replicate index; True: ring-sharded
-    # transport for the ring-sharded index rotation: "ppermute" = XLA
-    # collective; "dma" = raw Pallas make_async_remote_copy + DMA semaphores;
-    # "dma_barrier" = dma plus a neighbor entry barrier + collective_id
-    # (parallel/ring_dma.py ordering invariant; TPU meshes only - all
-    # bitwise identical)
-    ring_impl: str = "ppermute"
     # merge the streamed pileup accumulators with psum_scatter over the
     # COLUMN axis instead of a full psum (mesh mode only): the collective
     # moves 1/N of the bytes and each device keeps 1/N of the columns - the
@@ -242,6 +233,8 @@ class PipelineConfig:
     @staticmethod
     def from_json(s: str) -> "PipelineConfig":
         d = json.loads(s)
+        for k in _RETIRED_KEYS:   # options of older versions; no effect now
+            d.pop(k, None)
         # legacy float threshold -> exact rational (pre-round-2 checkpoints)
         legacy = d.pop("poly_min_minor_frac", None)
         if legacy is not None and "poly_minor_frac_num" not in d:
@@ -254,6 +247,11 @@ class PipelineConfig:
         if sc is not None:
             cfg = dataclasses.replace(cfg, scoring=ScoringParams(**sc))
         return cfg
+
+
+# options that older checkpoints may carry (SW kernel and ring transport
+# selectors); dropped on load
+_RETIRED_KEYS = ("sw_impl", "ring_impl")
 
 
 def _preset(**kw) -> PipelineConfig:

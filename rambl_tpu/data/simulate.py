@@ -5,7 +5,8 @@ reference mount was empty), so correctness is pinned against a synthetic mock
 community with known ground truth: a phylogeny of 16S-like genes with
 conserved/variable regions, a Greengenes-style 7-rank taxonomy, and shotgun
 reads with realistic substitution/indel errors. The NumPy oracle's output on
-this data is the golden fixture for every TPU component (SURVEY.md section 4.2).
+this data is the golden fixture for every device component (SURVEY.md
+section 4.2).
 
 Everything is deterministic given the seed.
 """

@@ -1,8 +1,8 @@
-"""Seed-table index builder: the TPU-native replacement for `bwa index`.
+"""Seed-table index builder: the device-side replacement for `bwa index`.
 
 The reference builds a BWT/FM-index with suffix-array sampling (SURVEY.md
 section 2.2 item 1, BWA in C). FM-index backward search is pointer-chasing and
-hostile to TPU memory (SURVEY.md section 7.4.3), so the TPU-native index is a
+hostile to accelerator memory (SURVEY.md section 7.4.3), so the index is a
 *hashed k-mer seed table laid out as dense int32 tensors*:
 
 - all k-mers of every reference sequence are enumerated on the host (NumPy),
@@ -23,7 +23,7 @@ hostile to TPU memory (SURVEY.md section 7.4.3), so the TPU-native index is a
   the k-mer's carriers instead.
 
 Device-side lookup (rambl_tpu.ops.seed / oracle.seed) is then pure
-gather + compare over dense arrays: exactly the access pattern TPUs like.
+gather + compare over dense arrays, with no pointer chasing.
 The table is replicated across devices when it fits, or sharded by bucket
 range with ring rotation of read blocks (SURVEY.md section 2.3 "TP/SP").
 """

@@ -1,7 +1,7 @@
 """Taxonomy tensors: vectorized LCA for read binning.
 
 The reference assigns reads to Greengenes taxonomy-tree nodes in per-read
-Python (SURVEY.md L5, hot loop #2). TPU-native binning replaces the tree walk
+Python (SURVEY.md L5, hot loop #2). Device binning replaces the tree walk
 with dense ancestor-path tables:
 
 - `anc_path[node, d]` = ancestor of `node` at depth d (root=depth 0), padded by

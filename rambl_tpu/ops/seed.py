@@ -4,8 +4,7 @@ Bit-identical to rambl_tpu.oracle.seed (same deterministic rules; tested in
 tests/test_ops_parity.py). The CSR seed table is consumed by pure gathers:
 bucket offsets -> first `cap` entries -> key compare -> diagonal-bin votes ->
 two-key lax.sort for (votes desc, key asc) top-C selection. No pointer chasing
-- exactly the dense access pattern the TPU memory system wants (SURVEY.md
-section 7.4.3).
+- dense gathers only (SURVEY.md section 7.4.3).
 
 The index arrays are passed as explicit tensors so they can be device_put with
 a NamedSharding (replicated, or bucket-range sharded for the ring path).
@@ -31,11 +30,8 @@ class SeedTable(NamedTuple):
     int32 row holds 32 consecutive CSR entries field-major
     [keys(32) | refs(32) | pos(32) | pad(32)], so a capped bucket probe is a
     2-row gather of perfectly tiled 512-byte lines and field extraction is a
-    static slice. Random narrow-row gathers over the ~2.5 GB
-    full-Greengenes table were the round-0 align bottleneck (VERDICT r4
-    weak #1), and any layout whose minor dim < 128 lanes pays a tiled-copy
-    expansion on this target (a (n,4) -> (n/8,32) on-device reshape tried to
-    allocate 78 GB).
+    static slice, in place of random narrow-row gathers over the ~2.5 GB
+    full-Greengenes table.
     """
 
     bucket_start: jax.Array   # (P+1,) int32
@@ -270,14 +266,13 @@ def _gather_windows_twolevel(ref_seqs, cand_ref, cand_wstart, W: int,
     The padded reference panel is viewed as 128-col chunks
     ((R * n_chunk_cols, 128) after one reshape); each candidate window spans
     at most `span` consecutive chunks, so level 1 is ONE contiguous-row
-    gather of those chunk rows (row gathers are fast on TPU; element gathers
-    are catastrophic - scripts/bench_gather_variants.py) and level 2 selects
+    gather of those chunk rows (row gathers move contiguous bytes; element
+    gathers do not - scripts/bench_gather_variants.py) and level 2 selects
     the window among the 128/diag_bin possible in-chunk offsets with static
     masked slices (the window start is on the diag_bin grid). Traffic is
     ~N * span * 128 bytes gathered + 8 select passes over (N, W) - the
     previous formulation's coarse stage was ~18 masked passes over the
-    FULL (N, 281) sub-rows plus an (N, RLpad) row gather, which dominated
-    config-3 round-0 align (~390s vs ~130s panel rounds). Bit-identical to
+    FULL (N, 281) sub-rows plus an (N, RLpad) row gather. Bit-identical to
     the strided table (same padded array, same on-grid starts;
     tests/test_ops_parity.py::test_gather_windows_twolevel_parity)."""
     R, RL = ref_seqs.shape
@@ -336,8 +331,7 @@ def gather_windows_jax(ref_seqs, cand_ref, cand_wstart, W: int,
     (cand_wstart = dbin * diag_bin + s0, exactly what select_candidates
     emits), and the gather runs against an in-graph strided table
     (R, n_diag_bins, W): a contiguous-row gather instead of a 10M-element
-    scatter-gather. Measured ~50x faster on TPU (scripts/
-    bench_gather_variants.py: 115ms -> ~2ms device per 64k windows); XLA
+    scatter-gather (scripts/bench_gather_variants.py compares them); XLA
     fuses the table build, so no persistent memory is held. Bitwise
     identical for on-grid starts; off-grid callers must pass cfg=None.
     """
@@ -373,9 +367,8 @@ def gather_windows_jax(ref_seqs, cand_ref, cand_wstart, W: int,
 def roll_rows(x, shift):
     """Left-roll each row of (B, L) by its own shift (mod L) with a barrel
     shifter: log2(L) masked STATIC rolls instead of a per-row dynamic
-    gather - take_along_axis on (B, L) costs ~11 ms device per call at
-    B=8192 (Mosaic lowers per-lane dynamic indexing to mask loops), the
-    barrel is a handful of vector selects."""
+    gather (take_along_axis on (B, L)); the barrel is a handful of vector
+    selects."""
     L = x.shape[1]
     s = shift.astype(jnp.int32)
     sh = 1

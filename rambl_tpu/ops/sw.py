@@ -5,9 +5,11 @@ tests/test_ops_parity.py): same recurrence, same locked tie-breaking
 (diag > E > F > zero; open >= extend; best cell = max H then smallest i, j).
 
 Dataflow (SURVEY.md section 7.4.5): state arrays indexed by query position i,
-advanced over anti-diagonals d = i + j, batch as the trailing vector axis -
-the same schedule the Pallas kernel uses, so XLA keeps everything in registers
-/ VMEM-resident vectors with no intra-step dependencies.
+advanced over anti-diagonals d = i + j, batch as the leading axis - cells of
+one anti-diagonal have no mutual dependencies. This is the CPU (test
+platform) score pass and, on every platform, the dirs-emitting second pass
+over the compacted gapped sub-batch; on a GPU the score pass is the Pallas
+kernel in ops.sw_pallas.
 
 Direction bits are emitted per anti-diagonal as a (B, L) uint8 row: for cell
 (i, j), dirs[i + j - 2, b, i - 1] has bits [0:2]=H-choice, bit2=E-open,
@@ -26,6 +28,7 @@ from rambl_tpu.config import ScoringParams
 CH_ZERO, CH_DIAG, CH_E, CH_F = 0, 1, 2, 3
 
 _TIE = 32768  # best-cell packing: key = H * _TIE - (i * (W + 1) + j)
+_NONE = -(1 << 30)  # key of "no cell yet"
 
 
 def _sub(q, wj, sc: ScoringParams):
@@ -76,7 +79,7 @@ def _scan_body(sc: ScoringParams, L: int, W: int, want_dirs: bool, carry, d):
     Fnew = jnp.where(vm, Fnew, NEG)
 
     cell_key = Hnew * _TIE - (ii * (W + 1) + j)[None, :]
-    cell_key = jnp.where(vm & (Hnew > 0), cell_key, -(1 << 30))
+    cell_key = jnp.where(vm & (Hnew > 0), cell_key, _NONE)
     best = jnp.maximum(best, cell_key.max(axis=1))
 
     zcol = jnp.zeros((B, 1), jnp.int32)
@@ -100,29 +103,36 @@ def _sw(q, w, sc: ScoringParams, want_dirs: bool):
     H2 = jnp.zeros((B, L + 1), jnp.int32)
     E1 = jnp.full((B, L + 1), NEG, jnp.int32)
     F1 = jnp.full((B, L + 1), NEG, jnp.int32)
-    best = jnp.full((B,), -(1 << 30), jnp.int32)
+    best = jnp.full((B,), _NONE, jnp.int32)
     qi = q.astype(jnp.int32)
     wi = w.astype(jnp.int32)
 
     body = functools.partial(_scan_body, sc, L, W, want_dirs)
     ds = jnp.arange(2, L + W + 1, dtype=jnp.int32)
     carry, dirs = jax.lax.scan(body, (H1, H2, E1, F1, best, qi, wi), ds)
-    best = carry[4]
+    return (*decode_best(carry[4], W), dirs)
 
-    none = best == -(1 << 30)
+
+def decode_best(best, W: int):
+    """Best-cell key -> (score, i_end, j_end), each (B,) int32; a key with
+    no positive-H cell (score <= 0) decodes to zeros."""
     score = -(-best // _TIE)          # ceil: best = H*_TIE - r, 0 < r < _TIE
     r = score * _TIE - best
-    i_end = r // (W + 1)
-    j_end = r % (W + 1)
-    score = jnp.where(none, 0, score).astype(jnp.int32)
-    i_end = jnp.where(none, 0, i_end).astype(jnp.int32)
-    j_end = jnp.where(none, 0, j_end).astype(jnp.int32)
-    return score, i_end, j_end, dirs
+    none = score <= 0
+    z = jnp.int32(0)
+    return (jnp.where(none, z, score).astype(jnp.int32),
+            jnp.where(none, z, r // (W + 1)).astype(jnp.int32),
+            jnp.where(none, z, r % (W + 1)).astype(jnp.int32))
 
 
-def sw_score(q, w, sc: ScoringParams):
+def sw_score(q, w, sc: ScoringParams, rows: int = 0):
     """Score-only pass. q: (B, L) int8, w: (B, W) int8 ->
-    (score, i_end, j_end) each (B,) int32 (1-based end cell)."""
+    (score, i_end, j_end) each (B,) int32 (1-based end cell).
+
+    rows (0 = L): DP over the first `rows` query rows only, exact whenever
+    every real read fits (proof in ops/sw_pallas.sw_score_pallas)."""
+    if rows and rows < q.shape[1]:
+        q = q[:, :rows]
     s, ie, je, _ = _sw(q, w, sc, want_dirs=False)
     return s, ie, je
 

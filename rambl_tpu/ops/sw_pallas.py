@@ -1,29 +1,20 @@
-"""Pallas TPU kernel: banded affine-gap Smith-Waterman, wavefront layout.
+"""Pallas kernel (Triton route, for GPUs): affine-gap Smith-Waterman score.
 
-The hand-written replacement for BWA-MEM's C inner loop (SURVEY.md
-section 2.2 item 1 / 7.4.5). Bit-identical outputs to ops.sw.sw_score
-(same recurrence, masks and tie-break key), tested in tests/test_sw_pallas.py.
+The pass-1 score over every (read, candidate window) pair - the hot loop of
+the align step. Bit-identical to ops.sw.sw_score (same recurrence, the same
+best-cell key H * 32768 - (i * (W + 1) + j) and tie-breaks), tested in
+interpret mode in tests/test_sw_pallas.py and compiled on the card by
+chip_smoke.py.
 
-Layout (the speed-of-light plan from SURVEY.md section 7.4.5):
-- 128 independent alignments per grid step ride the LANE axis;
-- query position i (1..L) rides the SUBLANE axis;
-- the DP advances over anti-diagonals d = i + j: cells on one anti-diagonal
-  have no mutual dependencies, so each step is ~a dozen (L, 128) VPU ops;
-- state (H at d-1/d-2, E, F, reversed-window register, running best key)
-  lives entirely in VMEM scratch; HBM traffic is one (L, 128) query tile and
-  one (L+W, 128) window tile in, one (8, 128) best-key tile out.
-
-The window register trick: rrev[si] must hold w[d - si - 2] at step d;
-shifting rrev down one sublane per step and inserting row w[d-2] at the top
-(pltpu.roll + dynamic row read) keeps the per-step window access to a single
-contiguous row instead of a diagonal gather.
-
-Masking scheme (round 2+): only H is masked to 0 outside the valid band -
-that alone reproduces the oracle's zero borders for every later dependency.
-E/F go unmasked: outside the band they evolve from masked H (= 0) so they can
-never exceed H - gap_open and never raise any valid H (H = max(..., 0)
-ignores negatives); where they re-enter validity they coincide with the
-oracle values that matter (see _score_kernel).
+Layout (inter-task parallelism, the CUDASW++ pattern): each program owns a
+block of `block` alignments, one per lane. The query is cut into strips of
+`strip` rows; for each strip a loop walks the window columns j = 1..W with the
+strip's H and E (the horizontal gap state) held in registers, so a cell costs
+a dozen integer ops and no memory traffic. Only the strip's bottom row (H and
+the vertical gap F, one int32 each per column) crosses to the next strip
+through a (W, B) buffer. The whole L x W rectangle is valid, so no cell is
+masked. The plain ops.sw scan instead writes its (pairs, L+1) state to device
+memory at every anti-diagonal step.
 """
 
 from __future__ import annotations
@@ -33,427 +24,126 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from rambl_tpu.config import ScoringParams
+from rambl_tpu.ops.sw import _NONE, _TIE, decode_best
 
-TILE = 128
-_TIE = 32768
-_NONE = -(1 << 30)
-
-
-def _wavefront_loop(step, L: int, W: int):
-    """Anti-diagonal sweep d = 2..L+W with phase-split masking.
-
-    mask_mode passed to step: 0 = ramp-up (only si <= d-2 can be violated),
-    1 = full band (no mask), 2 = ramp-down (only si >= d-1-W), 3 = both.
-    The middle phase is statically unrolled (W+1-L steps). Measured round 3:
-    the split + the register tricks are each within measurement noise
-    (~±5% at 61-65 GCUPS pipelined) - the kernel is VPU-issue-bound, not
-    mask-bound - but they strictly reduce per-step ops, so the lean form is
-    kept. Falls back to fused masks if L > W+1 (never for read_len <= W)."""
-    if L <= W + 1:
-        jax.lax.fori_loop(2, L + 1, lambda d, c: step(d, 0), 0)
-        for d in range(L + 1, W + 2):     # static: full-band steps
-            step(d, 1)
-        jax.lax.fori_loop(W + 2, L + W + 1, lambda d, c: step(d, 2), 0)
-    else:
-        jax.lax.fori_loop(2, L + W + 1, lambda d, c: step(d, 3), 0)
+_W_PAD = 9            # window N/pad code: never equals a query code
+_Q_PAD = 8            # query N/pad code: never equals a window code
 
 
-def _mask_h(hnew, si, d, W: int, mask_mode: int):
-    """Validity mask for the phase (only H needs masking - module docstring)."""
-    if mask_mode == 0:
-        return jnp.where(si <= d - 2, hnew, 0)
-    if mask_mode == 2:
-        return jnp.where(si >= d - 1 - W, hnew, 0)
-    if mask_mode == 3:
-        return jnp.where((si <= d - 2) & (si >= d - 1 - W), hnew, 0)
-    return hnew
+_STRIP_MAX = 36       # rows held in registers per strip (H100: 35-row
+                      # strips beat 32 and 52 at sw_rows 104; PERF.md)
 
 
-def _score_kernel(qT_ref, wT_ref, out_ref, H1, H2, E1, F1, rrev, best,
-                  *, sc: ScoringParams, L: int, W: int):
-    NEG = sc.neg_inf
-    go_ge = sc.gap_open + sc.gap_extend
-    ge = sc.gap_extend
-
-    H1[:] = jnp.zeros((L, TILE), jnp.int32)
-    # H2 stores the diag predecessor ALREADY shifted+bordered: at step d it
-    # holds roll(H(d-2)) with row 0 forced to the DP border - exactly the
-    # `hup` of step d-1, saving one roll + one select per step
-    H2[:] = jnp.zeros((L, TILE), jnp.int32)
-    E1[:] = jnp.full((L, TILE), NEG, jnp.int32)
-    F1[:] = jnp.full((L, TILE), NEG, jnp.int32)
-    # window register init: code 9 = the "never matches anything" sentinel
-    # the host remaps pad code 4 to (q stays 0..4, so q == r is the whole
-    # match test - no separate q<4 / r<4 masks per step)
-    rrev[:] = jnp.full((L, TILE), 9, jnp.int32)
-    best[:] = jnp.full((L, TILE), _NONE, jnp.int32)
-
-    q = qT_ref[:]                                     # (L, TILE)
-    si = jax.lax.broadcasted_iota(jnp.int32, (L, TILE), 0)
-    row0 = si == 0
-    # best-cell key: H * 32768 - pos, pos(i, j) = i*(W+1)+j = si*W + W + d.
-    # Per STEP only the d part varies per row, so the running key is
-    # H * _TIE - d; the row-constant si*W + W is subtracted once at the end
-    # (max and subtraction of a row constant commute).
-    siw = si * W + W
-
-    def step(d, mask_mode):
-        # window register: shift down, insert w[d-2] at the top
-        r = pltpu.roll(rrev[:], 1, axis=0)
-        rrev[:] = r
-        rrev[pl.ds(0, 1), :] = wT_ref[pl.ds(d - 2, 1), :]
-        r = rrev[:]
-
-        sub = jnp.where(q == r, jnp.int32(sc.match), jnp.int32(sc.mismatch))
-
-        h1 = H1[:]
-        f1 = F1[:]
-        e1 = E1[:]
-
-        # shift-down predecessors with border rows (the roll wraps the last
-        # row into row 0, so row 0 must be forced to the DP border)
-        hup = jnp.where(row0, 0, pltpu.roll(h1, 1, axis=0))
-        fup = jnp.where(row0, NEG, pltpu.roll(f1, 1, axis=0))
-
-        enew = jnp.maximum(h1 - go_ge, e1 - ge)
-        fnew = jnp.maximum(hup - go_ge, fup - ge)
-        diag = H2[:] + sub
-        hnew = jnp.maximum(
-            jnp.maximum(diag, 0), jnp.maximum(enew, fnew)
-        )
-
-        # only H needs the validity mask: invalid cells forced to 0 exactly
-        # reproduce the oracle's zero borders for every later dependency
-        # (module docstring); the phase split makes it free mid-sweep
-        hnew = _mask_h(hnew, si, d, W, mask_mode)
-
-        # running per-row key. No mask: hnew == 0 keys are negative and lose
-        # to any positive-score key; when NO positive score exists the
-        # wrapper clamps score<=0 to (0, 0, 0).
-        best[:] = jnp.maximum(best[:], hnew * _TIE - d)
-
-        H2[:] = hup
-        H1[:] = hnew
-        E1[:] = enew
-        F1[:] = fnew
-        return 0
-
-    _wavefront_loop(step, L, W)
-    # (8, TILE) out tile (Mosaic needs sublane >= 8); row 0 carries the result
-    m = jnp.max(best[:] - siw, axis=0, keepdims=True)
-    out_ref[:] = jnp.broadcast_to(m, (1, 8, TILE))
+def strips(L: int, strip: int = 0) -> tuple[int, ...]:
+    """Static row-strip sizes covering L query rows: `strip` rows each, or
+    with strip 0 the fewest strips of at most _STRIP_MAX rows, balanced."""
+    if not strip:
+        n = -(-L // _STRIP_MAX)
+        return tuple(L // n + (i < L % n) for i in range(n))
+    return (strip,) * (L // strip) + ((L % strip,) if L % strip else ())
 
 
-def _align_kernel(qT_ref, wT_ref, out_ref, dirs_ref, H1, H2, E1, F1, rrev,
-                  best, pack, *, sc: ScoringParams, L: int, W: int):
-    """Score kernel + per-cell direction emission for exact traceback.
+def _score_kernel(q_ref, w_ref, best_ref, bh_ref, bf_ref, *,
+                  sc: ScoringParams, L: int, W: int, strip: int):
+    """q_ref (L, blk) int8, w_ref (W, blk) int8 -> best_ref (blk,) int32.
 
-    Replaces the lax.scan second DP pass (ops.sw.sw_align) for the compacted
-    gapped sub-batch (pipeline/align.py) - the scan rematerialized the whole
-    recurrence through XLA while this shares the wavefront layout of
-    _score_kernel. Direction nibbles (bits 0:2 H-choice, 2 E-open, 3 F-open,
-    identical encoding to ops.sw._scan_body) are packed 8 anti-diagonals per
-    int32 word and flushed to dirs_ref (ceil((L+W-1)/8), L, TILE) - VMEM
-    holds one (L, TILE) pack register instead of the full direction cube.
+    bh_ref/bf_ref (W, blk) int32 carry H and F of a strip's last row to the
+    next strip (H(i0-1, j) and F(i0-1, j) for the strip starting at row i0).
     """
-    NEG = sc.neg_inf
+    blk = best_ref.shape[0]
+    neg = jnp.full((blk,), sc.neg_inf, jnp.int32)
+    zero = jnp.zeros((blk,), jnp.int32)
+    none = jnp.full((blk,), _NONE, jnp.int32)
     go_ge = sc.gap_open + sc.gap_extend
     ge = sc.gap_extend
+    parts = strips(L, strip)
 
-    H1[:] = jnp.zeros((L, TILE), jnp.int32)
-    H2[:] = jnp.zeros((L, TILE), jnp.int32)   # pre-shifted diag, see _score
-    E1[:] = jnp.full((L, TILE), NEG, jnp.int32)
-    F1[:] = jnp.full((L, TILE), NEG, jnp.int32)
-    rrev[:] = jnp.full((L, TILE), 9, jnp.int32)
-    best[:] = jnp.full((L, TILE), _NONE, jnp.int32)
-    pack[:] = jnp.zeros((L, TILE), jnp.int32)
+    best = none
+    i0 = 0
+    for n, R in enumerate(parts):
+        first, last = n == 0, n == len(parts) - 1
+        q = [q_ref[i0 + r, :].astype(jnp.int32) for r in range(R)]
 
-    q = qT_ref[:]
-    si = jax.lax.broadcasted_iota(jnp.int32, (L, TILE), 0)
-    row0 = si == 0
-    siw = si * W + W
+        def column(j, carry, q=q, R=R, first=first, last=last):
+            hl, el, bk, hdiag = carry        # H(i, j-1), E(i, j-1), row keys
+            wj = w_ref[j, :].astype(jnp.int32)
+            if first:                        # DP border row 0
+                hup, fup = zero, neg
+            else:
+                hup, fup = bh_ref[j, :], bf_ref[j, :]
+            hb = hup
+            hl2, el2, bk2 = [], [], []
+            for r in range(R):
+                s = jnp.where(q[r] == wj, sc.match, sc.mismatch)
+                e = jnp.maximum(hl[r] - go_ge, el[r] - ge)
+                f = jnp.maximum(hup - go_ge, fup - ge)
+                h = jnp.maximum(jnp.maximum(hdiag + s, 0), jnp.maximum(e, f))
+                # per-row key H * _TIE - j; the row part i * (W + 1) is
+                # subtracted once per strip (max commutes with it)
+                bk2.append(jnp.maximum(bk[r], h * _TIE - (j + 1)))
+                hdiag = hl[r]
+                hl2.append(h)
+                el2.append(e)
+                hup, fup = h, f
+            if not last:
+                bh_ref[j, :] = hup
+                bf_ref[j, :] = fup
+            return tuple(hl2), tuple(el2), tuple(bk2), hb
 
-    def step(d, mask_mode):
-        r = pltpu.roll(rrev[:], 1, axis=0)
-        rrev[:] = r
-        rrev[pl.ds(0, 1), :] = wT_ref[pl.ds(d - 2, 1), :]
-        r = rrev[:]
-
-        sub = jnp.where(q == r, jnp.int32(sc.match), jnp.int32(sc.mismatch))
-
-        h1 = H1[:]
-        f1 = F1[:]
-        e1 = E1[:]
-
-        hup = jnp.where(row0, 0, pltpu.roll(h1, 1, axis=0))
-        fup = jnp.where(row0, NEG, pltpu.roll(f1, 1, axis=0))
-
-        e_open = h1 - go_ge
-        e_ext = e1 - ge
-        enew = jnp.maximum(e_open, e_ext)
-        f_open = hup - go_ge
-        f_ext = fup - ge
-        fnew = jnp.maximum(f_open, f_ext)
-        diag = H2[:] + sub
-        hnew = jnp.maximum(
-            jnp.maximum(diag, 0), jnp.maximum(enew, fnew)
-        )
-
-        # direction nibble, EXACT tie order of ops.sw._scan_body:
-        # zero > diag > E > F for the H choice; open >= extend for E/F
-        ch = jnp.where(
-            hnew == 0, 0,
-            jnp.where(hnew == diag, 1, jnp.where(hnew == enew, 2, 3)))
-        nib = (ch
-               | jnp.where(e_open >= e_ext, 4, 0)
-               | jnp.where(f_open >= f_ext, 8, 0))
-
-        hnew = _mask_h(hnew, si, d, W, mask_mode)
-        nib = _mask_h(nib, si, d, W, mask_mode)
-
-        pack[:] = pack[:] | (nib << (((d - 2) % 8) * 4))
-
-        def _flush():
-            dirs_ref[:, pl.ds((d - 2) // 8, 1), :, :] = pack[:].reshape(
-                1, 1, L, TILE)
-            pack[:] = jnp.zeros((L, TILE), jnp.int32)
-
-        if isinstance(d, int):            # unrolled middle phase: static d
-            if (d - 2) % 8 == 7:
-                _flush()
-        else:
-            pl.when((d - 2) % 8 == 7)(_flush)
-
-        best[:] = jnp.maximum(best[:], hnew * _TIE - d)
-
-        H2[:] = hup
-        H1[:] = hnew
-        E1[:] = enew
-        F1[:] = fnew
-        return 0
-
-    _wavefront_loop(step, L, W)
-    if (L + W - 2) % 8 != 7:  # static: flush the final partial word
-        dirs_ref[:, pl.ds((L + W - 2) // 8, 1), :, :] = pack[:].reshape(
-            1, 1, L, TILE)
-    m = jnp.max(best[:] - siw, axis=0, keepdims=True)
-    out_ref[:] = jnp.broadcast_to(m, (1, 8, TILE))
+        init = ((zero,) * R, (neg,) * R, (none,) * R, zero)
+        _, _, bk, _ = jax.lax.fori_loop(0, W, column, init)
+        for r in range(R):
+            best = jnp.maximum(best, bk[r] - (i0 + r + 1) * (W + 1))
+        i0 += R
+    best_ref[:] = best
 
 
-def sw_align_pallas(q: jax.Array, w: jax.Array, sc: ScoringParams,
-                    interpret: bool = False, rows: int = 0):
-    """Pallas equivalent of ops.sw.sw_align: (score, i_end, j_end, packed)
-    with packed (ceil((L+W-1)/8), L, B) int32 direction nibbles for
-    sw_traceback_packed. B must be a multiple of 128; see sw_score_pallas
-    for the `rows` contract."""
-    B, L = q.shape
-    W = w.shape[1]
-    assert B % TILE == 0, "batch must be a multiple of 128"
-    if rows and rows < L:
-        assert rows % 8 == 0
-        q = q[:, :rows]
-        L = rows
-    # the packed best-cell key is H * _TIE - pos with pos = i*(W+1)+j; the
-    # decode mis-reads silently if pos can reach _TIE (ADVICE r2)
-    assert L * (W + 1) + W < _TIE, (
-        f"best-key overflow: L={L}, W={W} gives max pos {L * (W + 1) + W} "
-        f">= {_TIE}; shrink read_len_max/window_margin")
-    nb = B // TILE
-    Dp = -(-(L + W - 1) // 8)
-
-    qT = q.astype(jnp.int32).T
-    w32 = w.astype(jnp.int32)
-    w32 = jnp.where(w32 < 4, w32, 9)
-    wT = jnp.concatenate(
-        [w32, jnp.full((B, L + 1), 9, jnp.int32)], axis=1
-    ).T
-
-    kern = functools.partial(_align_kernel, sc=sc, L=L, W=W)
-    best, dirs = pl.pallas_call(
-        kern,
-        grid=(nb,),
-        in_specs=[
-            pl.BlockSpec((L, TILE), lambda t: (0, t), memory_space=pltpu.VMEM),
-            pl.BlockSpec((W + L + 1, TILE), lambda t: (0, t),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 8, TILE), lambda t: (t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, Dp, L, TILE), lambda t: (t, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nb, 8, TILE), jnp.int32),
-            jax.ShapeDtypeStruct((nb, Dp, L, TILE), jnp.int32),
-        ],
-        scratch_shapes=[pltpu.VMEM((L, TILE), jnp.int32)] * 7,
-        cost_estimate=pl.CostEstimate(
-            flops=18 * (L + W) * L * TILE * nb,
-            bytes_accessed=(L + W + L + Dp * L * 4) * TILE * 4 * nb,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(qT, wT)
-
-    best = best[:, 0, :].reshape(B)
-    score = -(-best // _TIE)
-    r = score * _TIE - best
-    i_end = r // (W + 1)
-    j_end = r % (W + 1)
-    none = score <= 0
-    score = jnp.where(none, 0, score).astype(jnp.int32)
-    i_end = jnp.where(none, 0, i_end).astype(jnp.int32)
-    j_end = jnp.where(none, 0, j_end).astype(jnp.int32)
-    # (nb, Dp, L, TILE) -> (Dp, L, B): batch-last layout for the traceback's
-    # per-step (B,) word gathers
-    packed = jnp.transpose(dirs, (1, 2, 0, 3)).reshape(Dp, L, B)
-    return score, i_end, j_end, packed
-
-
-def sw_traceback_packed(packed, i_end, j_end, L: int, W: int):
-    """sw_traceback over sw_align_pallas' packed-nibble layout.
-
-    packed: (ceil((L+W-1)/8), Lk, B) int32, nibble (d-2)%8 of word
-    (d-2)//8 holds cell (i=row+1, j=d-i)'s direction bits. Emits the same
-    ref_col (B, L) as ops.sw.sw_traceback on the scan dirs. Any sw_rows
-    truncation is carried implicitly by packed.shape[1] (= Lk); no separate
-    rows argument exists (ADVICE r2)."""
-    from rambl_tpu.ops.sw import CH_DIAG, CH_E, CH_F, CH_ZERO
-
-    B = i_end.shape[0]
-    Lk = packed.shape[1]
-    bidx = jnp.arange(B, dtype=jnp.int32)
-
-    def body(state, _):
-        i, j, st = state
-        d = i + j
-        word = packed[jnp.clip((d - 2) // 8, 0, packed.shape[0] - 1),
-                      jnp.clip(i - 1, 0, Lk - 1), bidx]
-        p = (word >> (((d - 2) % 8) * 4)) & 0xF
-        p = jnp.where((i > 0) & (j > 0), p, 0)
-        ch = (p & 0x3).astype(jnp.int32)
-        eop = (p >> 2) & 1
-        fop = (p >> 3) & 1
-
-        act_m = st == 0
-        act_e = st == 1
-        act_f = st == 2
-
-        m_diag = act_m & (ch == CH_DIAG)
-        emit_i = jnp.where(m_diag, i - 1, L)
-        emit_j = j - 1
-
-        ni = i - m_diag.astype(jnp.int32) - act_f.astype(jnp.int32)
-        nj = j - m_diag.astype(jnp.int32) - act_e.astype(jnp.int32)
-
-        nst = jnp.where(act_m & (ch == CH_ZERO), 3, st)
-        nst = jnp.where(act_m & (ch == CH_E), 1, nst)
-        nst = jnp.where(act_m & (ch == CH_F), 2, nst)
-        nst = jnp.where(act_e, jnp.where(eop == 1, 0, 1), nst)
-        nst = jnp.where(act_f, jnp.where(fop == 1, 0, 2), nst)
-        nst = jnp.where((ni <= 0) | (nj <= 0), 3, nst).astype(jnp.int8)
-        return (ni, nj, nst), (emit_i.astype(jnp.int32), emit_j.astype(jnp.int32))
-
-    i0 = i_end.astype(jnp.int32)
-    j0 = j_end.astype(jnp.int32)
-    st0 = jnp.where((i0 > 0) & (j0 > 0), 0, 3).astype(jnp.int8)
-
-    T = Lk + W + 2
-    ei0 = jnp.full((T, B), L, jnp.int32)
-    ej0 = jnp.zeros((T, B), jnp.int32)
-
-    def cond(state):
-        t, i, j, st, _, _ = state
-        return (t < T) & jnp.any(st != 3)
-
-    def wbody(state):
-        t, i, j, st, ei, ej = state
-        (ni, nj, nst), (emit_i, emit_j) = body((i, j, st), None)
-        ei = jax.lax.dynamic_update_index_in_dim(ei, emit_i, t, 0)
-        ej = jax.lax.dynamic_update_index_in_dim(ej, emit_j, t, 0)
-        return (t + 1, ni, nj, nst, ei, ej)
-
-    _, _, _, _, emit_i, emit_j = jax.lax.while_loop(
-        cond, wbody, (jnp.int32(0), i0, j0, st0, ei0, ej0)
-    )
-    ref_col = jnp.full((B, L + 1), -1, jnp.int32)
-    ref_col = ref_col.at[bidx[None, :], emit_i].set(emit_j)
-    return ref_col[:, :L]
-
-
+@functools.partial(jax.jit, static_argnames=(
+    "sc", "rows", "block", "strip", "interpret"))
 def sw_score_pallas(q: jax.Array, w: jax.Array, sc: ScoringParams,
-                    interpret: bool = False, rows: int = 0):
-    """Drop-in for ops.sw.sw_score. q: (B, L) int8, w: (B, W) int8.
+                    rows: int = 0, block: int = 128, strip: int = 0,
+                    interpret: bool = False):
+    """Drop-in for ops.sw.sw_score. q: (B, L) int8, w: (B, W) int8 ->
+    (score, i_end, j_end) each (B,) int32 (1-based end cell, 0 = none).
 
-    B must be a multiple of 128 (pad with all-N rows; they score 0).
-    Returns (score, i_end, j_end) (B,) int32.
-
-    rows (static, multiple of 8, 0 = L): compute only the first `rows` query
-    rows. EXACT whenever every real read fits (all q[:, rows:] == 4): a
-    pad-row cell's H descends from some real-row H minus at least one gap
-    penalty (pad never matches), so it is strictly below that real H - the
-    global best cell is always in a real row, and among ties pad rows lose
-    the lowest-(i,j) tie-break anyway (larger i). 100bp reads in a 128-pad
-    layout waste 23% of the wavefront otherwise (tests/test_sw_pallas.py).
+    Any B: the batch is padded to a multiple of `block` with pad rows that
+    score 0. rows (0 = L): compute only the first `rows` query rows. Exact
+    whenever every real read fits (all q[:, rows:] are pad): a pad-row cell's
+    H comes from some real-row H minus at least one gap penalty, since pad
+    never matches, so it is strictly below that real H; the best cell is
+    always in a real row.
     """
     B, L = q.shape
     W = w.shape[1]
-    assert B % TILE == 0, "batch must be a multiple of 128"
     if rows and rows < L:
-        assert rows % 8 == 0, "rows must be a sublane multiple"
         q = q[:, :rows]
         L = rows
+    # the decode mis-reads silently if pos = i*(W+1)+j can reach _TIE
     assert L * (W + 1) + W < _TIE, (
-        f"best-key overflow: L={L}, W={W} gives max pos {L * (W + 1) + W} "
-        f">= {_TIE}; shrink read_len_max/window_margin")
-    nb = B // TILE
-
-    # lanes = batch: transpose to (L, B) / (L + W, B). Window codes >= 4
-    # (N/pad) remap to sentinel 9 so the kernel's match test is a single
-    # q == r compare (q stays 0..4 and can never equal 9; q = 4 never equals
-    # any real r in 0..3 either).
-    qT = q.astype(jnp.int32).T
-    w32 = w.astype(jnp.int32)
-    w32 = jnp.where(w32 < 4, w32, 9)
-    wT = jnp.concatenate(
-        [w32, jnp.full((B, L + 1), 9, jnp.int32)], axis=1
-    ).T                                                   # (W + L + 1, B)
-
-    kern = functools.partial(_score_kernel, sc=sc, L=L, W=W)
-    best = pl.pallas_call(
+        f"best-key overflow: L={L}, W={W}; shrink read_len_max/window_margin")
+    nb = -(-B // block)
+    pad = nb * block - B
+    # batch-last layout: one (block,) row load per query row / window column
+    qT = jnp.pad(jnp.where(q < 4, q, _Q_PAD).astype(jnp.int8),
+                 ((0, pad), (0, 0)), constant_values=_Q_PAD).T
+    wT = jnp.pad(jnp.where(w < 4, w, _W_PAD).astype(jnp.int8),
+                 ((0, pad), (0, 0)), constant_values=_W_PAD).T
+    kern = functools.partial(_score_kernel, sc=sc, L=L, W=W, strip=strip)
+    bnd = pl.BlockSpec((W, block), lambda t: (0, t))
+    best, _, _ = pl.pallas_call(
         kern,
         grid=(nb,),
-        in_specs=[
-            pl.BlockSpec((L, TILE), lambda t: (0, t), memory_space=pltpu.VMEM),
-            pl.BlockSpec((W + L + 1, TILE), lambda t: (0, t),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, 8, TILE), lambda t: (t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nb, 8, TILE), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((L, TILE), jnp.int32)] * 6,
-        cost_estimate=pl.CostEstimate(
-            flops=12 * (L + W) * L * TILE * nb,
-            bytes_accessed=(L + W + L) * TILE * 4 * nb,
-            transcendentals=0,
-        ),
+        in_specs=[pl.BlockSpec((L, block), lambda t: (0, t)), bnd],
+        out_specs=[pl.BlockSpec((block,), lambda t: (t,)), bnd, bnd],
+        out_shape=[jax.ShapeDtypeStruct((nb * block,), jnp.int32),
+                   jax.ShapeDtypeStruct((W, nb * block), jnp.int32),
+                   jax.ShapeDtypeStruct((W, nb * block), jnp.int32)],
+        compiler_params=plt.CompilerParams(num_warps=block // 32,
+                                           num_stages=1),
         interpret=interpret,
+        name="sw_score",
     )(qT, wT)
-
-    best = best[:, 0, :].reshape(B)
-    # zero-score cells keep (negative) keys in `best` now - the kernel no
-    # longer masks them (one fewer select per step); a winning key is
-    # positive iff some cell scored > 0, so clamp the rest here
-    score = -(-best // _TIE)
-    r = score * _TIE - best
-    i_end = r // (W + 1)
-    j_end = r % (W + 1)
-    none = score <= 0
-    score = jnp.where(none, 0, score).astype(jnp.int32)
-    i_end = jnp.where(none, 0, i_end).astype(jnp.int32)
-    j_end = jnp.where(none, 0, j_end).astype(jnp.int32)
-    return score, i_end, j_end
+    return decode_best(best[:B], W)

@@ -1,7 +1,7 @@
 """Pure-NumPy oracle: the executable specification of the pipeline.
 
 Every deterministic rule (scoring, tie-breaking, traceback preference,
-candidate ordering, cluster spawning) is locked here; the jitted TPU path in
+candidate ordering, cluster spawning) is locked here; the jitted device path in
 `rambl_tpu.pipeline` must reproduce these outputs bit-for-bit
 (SURVEY.md section 4.2 / 7.4.1).
 """

@@ -202,8 +202,7 @@ def apply_polish(genes: List, counts: Dict[int, np.ndarray],
     Returns (new_genes, n_changed).
 
     The per-gene NW maps run through colmap._nw_map_batch (vectorized across
-    genes, bitwise equal to _nw_map - VERDICT r4 weak #2 measured the
-    sequential loop at 110s/1754 genes); maps are recomputed after
+    genes, bitwise equal to _nw_map); maps are recomputed after
     substitution polish ONLY for genes whose sequence changed (identical
     input implies identical map, so reuse is exact)."""
     from rambl_tpu.index.colmap import _nw_map_batch

@@ -1,7 +1,7 @@
 """Seeding + candidate selection: NumPy specification.
 
 Replaces BWA-MEM's SMEM enumeration + chaining (SURVEY.md section 3.2) with a
-TPU-shaped deterministic rule set over the dense seed table
+deterministic rule set over the dense seed table
 (rambl_tpu.index.builder):
 
 1. query k-mers are sampled at fixed stride positions p = 0, s, 2s, ...

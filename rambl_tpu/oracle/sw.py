@@ -7,7 +7,7 @@ affine-gap extension (SURVEY.md section 3.2):
     E[i,j] = max(H[i,j-1] - go - ge, E[i,j-1] - ge)   # gap in query (deletion)
     F[i,j] = max(H[i-1,j] - go - ge, F[i-1,j] - ge)   # gap in ref  (insertion)
 
-Deterministic rules locked here (the TPU path must match exactly):
+Deterministic rules locked here (the device path must match exactly):
 
 - substitution: s(a,b) = match iff a == b and both < 4, else mismatch
   (code 4 = N/pad never matches, even 4 vs 4);

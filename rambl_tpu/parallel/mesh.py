@@ -18,7 +18,7 @@ def init_distributed() -> bool:
     device_put initialize the local backend, after which
     jax.distributed.initialize is rejected) - so this function must not
     itself touch the backend before initializing. Gated on the coordinator
-    env vars JAX supports (JAX_COORDINATOR_ADDRESS, or the TPU pod
+    env vars JAX supports (JAX_COORDINATOR_ADDRESS, or the cluster
     auto-detection when RAMBL_DISTRIBUTED=1) so single-process runs are a
     no-op. Returns True when distributed mode is active.
     """

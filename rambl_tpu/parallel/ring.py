@@ -10,12 +10,8 @@ shard so the per-seed hit slots fill exactly once. The result is bit-identical
 to the replicated lookup (tested in tests/test_distributed.py).
 
 Host-side prep: build_ring_shards slices the CSR table by bucket range and
-pads entry arrays to a common length.
-
-A Pallas `make_async_remote_copy` double-buffered variant of the rotation
-SHIPPED in round 3 (rambl_tpu.parallel.ring_dma, select with
-cfg.ring_impl="dma"): chunked raw remote DMA over lane-aligned views, bitwise
-vs the ppermute path (SURVEY.md section 5 "Distributed communication backend").
+pads entry arrays to a common length. The rotation is one lax.ppermute,
+which XLA hands to NCCL on GPUs.
 """
 
 from __future__ import annotations
@@ -80,9 +76,8 @@ def _ring_probe(keys, valid, bucket_start, entries,
     Call INSIDE shard_map: each device holds one bucket-range shard (the
     per-device slice of the build_ring_shards arrays, leading dim stripped).
     """
-    from rambl_tpu.parallel.ring_dma import ring_rotate
-
     n = jax.lax.axis_size(DATA_AXIS)
+    perm = [(i, (i + 1) % n) for i in range(n)]
     me = jax.lax.axis_index(DATA_AXIS)
     Pn = bucket_start.shape[0] - 1
     bucket = hash_kmer_jax(keys, n_bits)
@@ -92,9 +87,7 @@ def _ring_probe(keys, valid, bucket_start, entries,
         shard_id = jax.lax.rem(me - step + n, n)
         ck = probe(keys, valid, bucket, bs, ent, cfg, bucket_lo=shard_id * Pn)
         ckey = jnp.where(ck != BIGK, ck, ckey)
-        # one ring hop (i -> i+1): XLA ppermute, or the raw-DMA Pallas
-        # transport (cfg.ring_impl="dma"; parallel.ring_dma)
-        bs, ent = ring_rotate((bs, ent), DATA_AXIS, impl=cfg.ring_impl)
+        bs, ent = jax.lax.ppermute((bs, ent), DATA_AXIS, perm)  # i -> i+1
         return (bs, ent, ckey)
 
     from rambl_tpu.ops.seed import probe_slots

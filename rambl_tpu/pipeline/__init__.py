@@ -1,7 +1,7 @@
 """Jitted pipeline stages (single-chip and shard_map distributed).
 
 Mirrors rambl_tpu.oracle stage for stage with bit-identical outputs; the
-oracle is the spec, this package is the TPU execution path
+oracle is the spec, this package is the device execution path
 (SURVEY.md section 3.4 target stack).
 """
 

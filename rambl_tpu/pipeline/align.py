@@ -70,7 +70,7 @@ def check_sw_rows(read_lens, cfg: PipelineConfig) -> None:
     """cfg.sw_rows exactness guard at align entry points (ADVICE r2).
 
     Row truncation is only exact when every real read fits in the truncated
-    wavefront (ops/sw_pallas.py docstring proof). Enforced here whenever the
+    DP (proof in ops/sw_pallas.sw_score_pallas). Enforced here whenever the
     lengths are concrete (direct/script callers); traced callers are covered
     by the host-boundary check in pipeline/assemble._stream_align."""
     if not cfg.sw_rows or isinstance(read_lens, jax.core.Tracer):
@@ -83,6 +83,19 @@ def check_sw_rows(read_lens, cfg: PipelineConfig) -> None:
             f"cfg.sw_rows={cfg.sw_rows} < longest read {ml}: the truncated "
             "SW wavefront is only exact when every real read fits "
             "(ops/sw_pallas.py)")
+
+
+def score_fn(platform: str):
+    """The pass-1 SW score implementation for a JAX platform: the Pallas
+    kernel on a GPU, the plain scan on the CPU (the test platform). Both
+    take (q, w, sc, rows=) and are bit-identical (tests/test_sw_pallas.py)."""
+    if platform == "gpu":
+        from rambl_tpu.ops.sw_pallas import sw_score_pallas
+
+        return sw_score_pallas
+    if platform == "cpu":
+        return sw_score
+    raise ValueError(f"no SW score implementation for platform {platform!r}")
 
 
 def align_batch(
@@ -129,24 +142,11 @@ def align_from_candidates(
         axis=1,
     )                                                           # (B, 2C, L)
 
-    # pass 1: score all pairs (Pallas wavefront kernel on TPU; lax.scan
-    # fallback elsewhere - bit-identical, tests/test_sw_pallas.py)
-    use_pallas = cfg.sw_impl == "pallas" or (
-        cfg.sw_impl == "auto"
-        and jax.default_backend() not in ("cpu",)
-        and (B * 2 * C) % 128 == 0
+    # pass 1: score all pairs with the platform's SW implementation
+    score, p_ie, p_je = score_fn(jax.default_backend())(
+        q_pairs.reshape(B * 2 * C, L), wins.reshape(B * 2 * C, W), sc,
+        rows=cfg.sw_rows,
     )
-    if use_pallas:
-        from rambl_tpu.ops.sw_pallas import sw_score_pallas
-
-        score, p_ie, p_je = sw_score_pallas(
-            q_pairs.reshape(B * 2 * C, L), wins.reshape(B * 2 * C, W), sc,
-            rows=cfg.sw_rows,
-        )
-    else:
-        score, p_ie, p_je = sw_score(
-            q_pairs.reshape(B * 2 * C, L), wins.reshape(B * 2 * C, W), sc
-        )
     score = score.reshape(B, 2 * C)
     p_ie = p_ie.reshape(B, 2 * C)
     p_je = p_je.reshape(B, 2 * C)
@@ -179,8 +179,8 @@ def align_from_candidates(
     kk = jnp.arange(L, dtype=jnp.int32)
     kmax = jnp.minimum(ie, je)                              # (B,)
     # qi[k] = qb[ie-1-k] (and wj[k] = wb[je-1-k]) via static flip + barrel
-    # roll: per-row take_along_axis cost ~11 ms device per call at B=8192
-    # (ops/seed.roll_rows). Indices wrap mod L/W where the old clip clamped;
+    # roll instead of a per-row take_along_axis (ops/seed.roll_rows).
+    # Indices wrap mod L/W where a clip would clamp;
     # both regions lie at kk >= kmax and are masked to neg_inf below.
     from rambl_tpu.ops.seed import roll_rows
 
@@ -202,19 +202,7 @@ def align_from_candidates(
     needs_tb = (best_score > 0) & ~gapless
     cap = max(128, B // 8)
 
-    # the dirs-emitting DP: Pallas wavefront kernel when available (shares
-    # _score_kernel's layout; the lax.scan second pass dominated the
-    # traceback path), bit-identical scan fallback elsewhere
     def _dirs_trace(q_s, w_s):
-        if use_pallas and q_s.shape[0] % 128 == 0:
-            from rambl_tpu.ops.sw_pallas import (
-                sw_align_pallas,
-                sw_traceback_packed,
-            )
-
-            _, ie_s, je_s, packed = sw_align_pallas(q_s, w_s, sc,
-                                                    rows=cfg.sw_rows)
-            return sw_traceback_packed(packed, ie_s, je_s, L, W)
         _, ie_s, je_s, dirs_s = sw_align(q_s, w_s, sc)
         return sw_traceback(dirs_s, ie_s, je_s, L, W)
 

@@ -10,8 +10,9 @@ spawn/merge rules - see that module's docstring) but fully vectorized:
 - per-leaf clustering runs under lax.map with a fori_loop whose state freezes
   at convergence (fixed dp_max_iters trip count, masked updates - the
   jit-safe equivalent of the oracle's early break);
-- center recomputation is a one-hot einsum (assign x base one-hots) - an MXU
-  matmul, exact for integer counts in f32.
+- center recomputation is a one-hot einsum (assign x base one-hots) in int32:
+  exact counts on every backend (no reduced-precision float matmul can
+  enter).
 """
 
 from __future__ import annotations
@@ -90,10 +91,9 @@ def member_table_ranges(
     O(NL * W * M) with W = share_depth+1 instead of O(NL * B).
 
     The candidate list is compacted to the W live window depths BEFORE the
-    merge sort: the (NL, MAX_DEPTH*M) sort was the round-0 cluster block's
-    single largest cost (profile_cluster.py: 9.5 s/block at D=10, M=4096,
-    vs ~0.07 s for the row gathers themselves) and only W of the D depth
-    rows can hold reads. In-window path nodes are a unique real chain
+    merge sort: the (NL, MAX_DEPTH*M) sort costs far more than the row
+    gathers themselves (scripts/profile_cluster.py times both) and only W
+    of the D depth rows can hold reads. In-window path nodes are a unique real chain
     (taxonomy.build_taxonomy_tables pads only BEYOND depth(leaf)), so the
     candidate multiset - and the sorted first-M prefix - is bitwise
     unchanged."""
@@ -178,13 +178,12 @@ def leaf_features_dense(qm, rcm, member_valid, pol_cols, pol_valid,
     Bitwise identical to leaf_features(sorted_col_base(...)): alignment
     columns are unique within a read, so at most one member position matches
     each polymorphic column and the integer dot picks exactly that base's
-    value (+1; 0 = uncovered). TPU-shaped: the sorted formulation's 128-wide
-    per-row sort plus per-lane binary searches lower to Mosaic mask loops
-    (measured 34.9s + 35.0s per 512-leaf config-3 block on chip); here the
-    member bases scatter once into a dense (M, ref_len) plane and one
-    (M, ref_len) x (ref_len, P) int8 dot_general contracts it onto the
-    polymorphic columns on the MXU (values <= 5: exact in int32 or f32).
-    Leaves run in lax.map chunks to bound the dense plane at ~70 MB."""
+    value (+1; 0 = uncovered). The member bases scatter once into a dense
+    (M, ref_len) plane and one (M, ref_len) x (ref_len, P) int8 dot_general
+    with int32 accumulation contracts it onto the polymorphic columns
+    (values <= 5: exact). This replaces the sorted formulation's per-row
+    sort plus per-lane binary searches. Leaves run in lax.map chunks to
+    bound the dense plane at ~70 MB."""
     NL, M, L = qm.shape
     P = pol_cols.shape[1]
     ch = max(1, min(chunk, NL))
@@ -235,11 +234,12 @@ class DPMeansOut(NamedTuple):
 
 
 def _consensus_counts(feat, weights):
-    """Per-column base counts (P, 4) over reads weighted by `weights` (M,)."""
+    """Per-column base counts (P, 4) over reads weighted by `weights` (M,);
+    int32 throughout, so the counts are exact on every backend."""
     onehot = (feat[:, :, None] == jnp.arange(4, dtype=jnp.int8)[None, None, :])
     return jnp.einsum(
-        "m,mpb->pb", weights.astype(jnp.float32), onehot.astype(jnp.float32),
-        preferred_element_type=jnp.float32,
+        "m,mpb->pb", weights.astype(jnp.int32), onehot.astype(jnp.int32),
+        preferred_element_type=jnp.int32,
     )
 
 
@@ -255,7 +255,7 @@ def _dp_means_single(cfg: PipelineConfig, args):
 
     cov = feat >= 0                               # (M, P)
     ncov = cov.sum(axis=1).astype(jnp.int32)      # (M,)
-    covered_reads = jnp.ones((M,), jnp.float32)   # all rows; empties harmless
+    covered_reads = jnp.ones((M,), jnp.int32)     # all rows; empties harmless
 
     # fallback = bin consensus (argmax counts; ties lowest base; empty -> 0)
     cnt_all = _consensus_counts(feat, covered_reads)          # (P, 4)
@@ -311,12 +311,12 @@ def _dp_means_single(cfg: PipelineConfig, args):
         # recompute centers: counts per (k, p, base) via one-hot einsum
         aoh = (
             new_assign[:, None] == jnp.arange(K, dtype=jnp.int32)[None, :]
-        ).astype(jnp.float32)                                  # (M, K)
+        ).astype(jnp.int32)                                    # (M, K)
         foh = (
             feat[:, :, None] == jnp.arange(4, dtype=jnp.int8)[None, None, :]
-        ).astype(jnp.float32)                                  # (M, P, 4)
+        ).astype(jnp.int32)                                    # (M, P, 4)
         cnt = jnp.einsum("mk,mpb->kpb", aoh, foh,
-                         preferred_element_type=jnp.float32)   # (K, P, 4)
+                         preferred_element_type=jnp.int32)     # (K, P, 4)
         has = cnt.sum(axis=2) > 0
         cen_new = jnp.where(
             has, jnp.argmax(cnt, axis=2), fallback[None, :].astype(jnp.int32)
@@ -361,10 +361,9 @@ def dp_means_leaves(feat: jax.Array, can_seed: jax.Array,
     Leaves are independent, so they run vmapped in chunks of
     cfg.dp_leaf_vmap (sequential lax.map over chunks bounds the (ch, M, K, P)
     temporaries): a pure lax.map serialized NL small latency-bound steps and
-    dominated config-3-scale rounds (71 s/round measured at 1M reads x 100k
-    refs). Bitwise identical to the sequential map - every per-leaf op is
-    integer-exact and vmap adds only a batch dimension (the einsum f32
-    accumulations are exact: 0/1 products summed to < 2^24)."""
+    dominated config-3-scale rounds. Bitwise identical to the sequential
+    map - every per-leaf op is integer-exact (the einsums accumulate in
+    int32) and vmap adds only a batch dimension."""
     NL = feat.shape[0]
     ch = max(1, min(cfg.dp_leaf_vmap, NL))
     single = functools.partial(_dp_means_single, cfg)

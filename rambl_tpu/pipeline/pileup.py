@@ -23,11 +23,10 @@ from rambl_tpu.index.taxonomy import MAX_DEPTH
 
 
 #: rows per scatter chunk when a single call covers a whole retention buffer
-#: (slot mode scatters ALL reads in one jit). XLA lowers the scatter-add via
-#: a full sort of the flattened (B*L) index array - three int32 temps of that
-#: size - so an unchunked 10M-read call needs 3 x 4.8 GB of HBM temps and
-#: OOMs a 16 GB chip (measured, config 3 round 0). 512Ki rows bound the
-#: temps at ~0.8 GB while keeping the sort long enough to stay efficient.
+#: (slot mode scatters ALL reads in one jit). A scatter-add lowered via a
+#: full sort of the flattened (B*L) index array needs three int32 temps of
+#: that size - 3 x 4.8 GB for an unchunked 10M-read call. 512Ki rows bound
+#: the temps at ~0.8 GB while keeping each call large.
 _SCATTER_ROW_CHUNK = 1 << 19
 
 
@@ -35,8 +34,8 @@ def _scatter_flat(query, ref_col, bins, n_nodes: int, ref_len: int):
     """One scatter pass in FLAT index space. Returns (counts_1d
     (n_nodes*ref_len*4 + 1,), span_1d (n_nodes*(ref_len+1) + 1,)); the last
     element of each is the inert overflow/sentinel slot. 1D on purpose: a
-    (n, ref_len, 4) scan carry gets the T(8,128) tiled layout with the
-    trailing dim padded 4 -> 128 (32x HBM, measured 4.75 GB at config 3)."""
+    (n, ref_len, 4) carry can be laid out with its trailing dim of 4 padded
+    to a full tile; the flat layout cannot."""
     B, L = query.shape
     # the streaming driver retains ref_col as int16 (values < ref_len_max
     # round-trip exactly); widen inside the jit so the cast fuses
@@ -97,9 +96,9 @@ def node_pileup(
 
         # scan over chunk INDICES with dynamic_slice, not over sliced xs:
         # `query[:nfull].reshape(...)` as a scan input materializes a copy of
-        # the whole multi-GB retention (measured: the 20M-read config-5 run
-        # OOM'd on exactly that +7.5 GB), while a per-iteration slice holds
-        # one ~64-128 MB chunk at a time
+        # the whole multi-GB retention (+7.5 GB for a 20M-read config-5
+        # run), while a per-iteration slice holds one ~64-128 MB chunk at a
+        # time
         def body(carry, i):
             c, s = carry
             q = jax.lax.dynamic_slice_in_dim(query, i * ck, ck, 0)

@@ -62,8 +62,7 @@ def save_aux_evidence(path: str, cfg: PipelineConfig, aux: dict) -> None:
     """Sidecar store of the retained round-0 leaf-exclusive pileup
     accumulators (the polish/cohort evidence, ~160 MB slot-compacted at
     config-3 scale). Saved ONCE after the discovery round so a resumed run's
-    polish reuses them instead of re-streaming all of round 0 (VERDICT r4
-    weak #2 measured that re-stream at 503s on the config-5 resume path).
+    polish reuses them instead of re-streaming all of round 0.
     Counts are deterministic in the inputs, so the restored evidence is
     bitwise the uninterrupted run's."""
     arrays = {}

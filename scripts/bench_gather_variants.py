@@ -1,6 +1,8 @@
-"""Window-gather strategies on the chip: element gather vs strided-row gather
-vs one-hot matmul. The element gather was measured at ~110ms/batch (half of
-align_batch)."""
+"""Window-gather strategies on the GPU: element gather vs strided-row gather
+vs one-hot matmul.
+
+  PYTHONPATH=. python scripts/bench_gather_variants.py [B]
+"""
 
 import sys
 import time

@@ -1,13 +1,13 @@
-"""Host-only builder for the config-3/5 dataset+index caches (no TPU use).
+"""Host-only builder for the config-3/5 dataset+index caches (no device use).
 
 The scale runs (run_config3.py / run_config5.py) spend ~15 min on
 deterministic host work (10-20M-read simulation + 150M-entry index build)
 before touching the chip; this script produces exactly the pickles they
-look for so that a scale run can start on-chip immediately. Run it in the
-background while the chip is busy with something else (only ONE TPU process
-may run at a time - this one never initializes a backend).
+look for so that a scale run can start on the GPU immediately. Run it in the
+background while the GPU is busy with something else (one JAX process per
+card - this one never initializes a backend).
 
-  PYTHONPATH=/root/repo python scripts/build_scale_caches.py [config3|config5|both]
+  PYTHONPATH=. python scripts/build_scale_caches.py [config3|config5|both]
 """
 
 import os

@@ -2,7 +2,7 @@
 diagnosis needs (scripts/diagnose_impure.py iterates on the cached state
 instead of re-running the ~20 min CPU cohort assembly each time).
 
-Usage: JAX_PLATFORMS=cpu PYTHONPATH=/root/repo \
+Usage: JAX_PLATFORMS=cpu PYTHONPATH=. \
            python scripts/cache_config4_state.py [out.pkl]
 """
 

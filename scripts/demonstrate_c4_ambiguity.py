@@ -30,7 +30,7 @@ method could have done:
                                 dominant's private allele needs read-level
                                 linkage, which pileup phasing does not have
 
-Usage: JAX_PLATFORMS=cpu PYTHONPATH=/root/repo \
+Usage: JAX_PLATFORMS=cpu PYTHONPATH=. \
            python scripts/demonstrate_c4_ambiguity.py [/tmp/c4_state_r5.pkl]
 """
 

@@ -7,7 +7,7 @@ and positions (via the exact NW map onto the ref), gene length vs ref
 length, and the sibling-strain containment (is the miss a phasing error -
 the gene matches the OTHER strain of the same species?).
 
-  PYTHONPATH=/root/repo python scripts/diagnose_config3.py
+  PYTHONPATH=. python scripts/diagnose_config3.py
 """
 
 import pickle

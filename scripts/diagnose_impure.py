@@ -18,7 +18,7 @@ best-gene-vs-true-ref pair:
   backbone           ref agrees with NEITHER pooled major nor any gate
                      bucket (wrong backbone base / polish effect)
 
-Usage: JAX_PLATFORMS=cpu PYTHONPATH=/root/repo \
+Usage: JAX_PLATFORMS=cpu PYTHONPATH=. \
            python scripts/diagnose_impure.py [/tmp/c4_state.pkl]
 """
 

@@ -11,7 +11,7 @@ Metrics per scenario:
   mean_cont  - mean containment of each detectable ref's best matching gene;
   genes      - panel size (over-splitting indicator).
 
-Run on CPU (oracle) or TPU (device path, --jax).
+Run on CPU (oracle) or GPU (device path, --jax).
 """
 
 import sys

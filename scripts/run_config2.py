@@ -1,6 +1,6 @@
 """Driver config 2: small mock community, ~20 taxa, 1M reads, single host.
 
-Runs the full device assembly end-to-end on the local chip and reports
+Runs the full device assembly end-to-end on the local GPU and reports
 wall-clock, reads/s, genes assembled/hour and truth recovery.
 """
 

@@ -1,21 +1,20 @@
-"""Pallas wavefront SW kernel == oracle, in interpreter mode (CPU tier).
+"""SW paths == NumPy oracle, bitwise.
 
-Compiled-mode parity runs on the real chip via scripts/profile_align.py and
-the bench; this is the CI "sanitizer" tier (SURVEY.md section 5 race
-detection: interpret mode surfaces OOB/semaphore misuse).
+The score cases run the Pallas kernel (ops/sw_pallas.py) in interpret mode on
+the CPU; test_compiled_parity runs it compiled on a GPU (marker `gpu`, skips
+without one; chip_smoke.py makes the same check at real widths). The dirs
+cases run the plain dirs pass + traceback (ops/sw.py) that the align step
+uses for gapped reads on every platform.
 """
 
+import jax
 import numpy as np
 import pytest
 
 from rambl_tpu.config import ScoringParams
-from rambl_tpu.oracle.sw import sw_batch
+from rambl_tpu.oracle.sw import sw_batch, traceback_batch
 from rambl_tpu.ops.sw import sw_align, sw_traceback
-from rambl_tpu.ops.sw_pallas import (
-    sw_align_pallas,
-    sw_score_pallas,
-    sw_traceback_packed,
-)
+from rambl_tpu.ops.sw_pallas import strips, sw_score_pallas
 
 SC = ScoringParams()
 
@@ -38,6 +37,28 @@ def _gapped_cases(seed, B, L, W):
     return q, w
 
 
+def _short_reads(seed, B, L, W, max_len=40):
+    """Reads of 8..max_len bases padded to L with code 4, half with homology
+    (some with a mid mismatch) planted in the window."""
+    rng = np.random.default_rng(seed)
+    q = np.full((B, L), 4, np.int8)
+    lens = rng.integers(8, max_len + 1, B)
+    for b in range(B):
+        q[b, : lens[b]] = rng.integers(0, 4, lens[b])
+    w = rng.integers(0, 5, (B, W)).astype(np.int8)
+    for b in range(0, B, 2):
+        n = int(lens[b]) - 4
+        w[b, 3 : 3 + n] = q[b, 1 : 1 + n]
+        if b % 4 == 0 and n > 10:
+            w[b, 3 + n // 2] = (q[b, 1 + n // 2] + 1) % 4
+    return q, w
+
+
+def _assert_score(ref, got):
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
 @pytest.mark.parametrize("seed,L,W", [(0, 32, 48), (1, 16, 24), (2, 64, 80)])
 def test_interpret_parity(seed, L, W):
     rng = np.random.default_rng(seed)
@@ -47,11 +68,10 @@ def test_interpret_parity(seed, L, W):
     for b in range(0, B, 3):  # plant homology in a third of rows
         n = min(L, W) - 4
         w[b, 2 : 2 + n] = q[b, 1 : 1 + n]
-    s_np, ie_np, je_np, _ = sw_batch(q, w, SC, want_dirs=False)
-    s, ie, je = sw_score_pallas(q, w, SC, interpret=True)
-    np.testing.assert_array_equal(s_np, np.asarray(s))
-    np.testing.assert_array_equal(ie_np, np.asarray(ie))
-    np.testing.assert_array_equal(je_np, np.asarray(je))
+    ref = sw_batch(q, w, SC, want_dirs=False)[:3]
+    # strip 12: several strips and a remainder strip cross the (W, B)
+    # boundary buffer
+    _assert_score(ref, sw_score_pallas(q, w, SC, strip=12, interpret=True))
 
 
 def test_all_n_scores_zero():
@@ -67,63 +87,74 @@ def test_multi_tile_batches():
     B, L, W = 256, 24, 32
     q = rng.integers(0, 5, (B, L)).astype(np.int8)
     w = rng.integers(0, 5, (B, W)).astype(np.int8)
-    s_np, *_ = sw_batch(q, w, SC, want_dirs=False)
-    s, _, _ = sw_score_pallas(q, w, SC, interpret=True)
-    np.testing.assert_array_equal(s_np, np.asarray(s))
+    ref = sw_batch(q, w, SC, want_dirs=False)[:3]
+    _assert_score(ref, sw_score_pallas(q, w, SC, block=64, strip=8,
+                                       interpret=True))
+
+
+def test_ragged_batch_padding():
+    # B not a multiple of the block: pad rows must not leak into real rows
+    q, w = _gapped_cases(8, 100, 20, 28)
+    ref = sw_batch(q, w, SC, want_dirs=False)[:3]
+    _assert_score(ref, sw_score_pallas(q, w, SC, block=64, strip=7,
+                                       interpret=True))
+
+
+def test_strip_partition():
+    assert strips(104, 32) == (32, 32, 32, 8)
+    assert strips(64, 32) == (32, 32)
+    assert strips(5, 32) == (5,)
+    assert sum(strips(104, 12)) == 104
 
 
 @pytest.mark.parametrize("seed,L,W", [(5, 32, 48), (6, 24, 24)])
 def test_align_pallas_dirs_parity(seed, L, W):
-    # the dirs-emitting kernel + packed traceback == the lax.scan second DP
-    # (score/end cell AND the full traced ref_col path, gapped cases incl.)
+    # the dirs pass + traceback the align step runs for gapped reads ==
+    # the oracle (score/end cell AND the traced ref_col path); the score
+    # kernel picks the same end cell
     q, w = _gapped_cases(seed, 128, L, W)
+    s_np, ie_np, je_np, dp = sw_batch(q, w, SC)
+    rc_np = traceback_batch(dp, ie_np, je_np, L)
     s0, ie0, je0, dirs0 = sw_align(q, w, SC)
     rc0 = sw_traceback(dirs0, ie0, je0, L, W)
-    s1, ie1, je1, packed = sw_align_pallas(q, w, SC, interpret=True)
-    rc1 = sw_traceback_packed(packed, ie1, je1, L, W)
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-    np.testing.assert_array_equal(np.asarray(ie0), np.asarray(ie1))
-    np.testing.assert_array_equal(np.asarray(je0), np.asarray(je1))
-    np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
+    _assert_score((s_np, ie_np, je_np), (s0, ie0, je0))
+    np.testing.assert_array_equal(rc_np, np.asarray(rc0))
+    _assert_score((s_np, ie_np, je_np),
+                  sw_score_pallas(q, w, SC, strip=10, interpret=True))
 
 
 def test_align_pallas_rows_truncation():
-    rng = np.random.default_rng(7)
+    # reads <= 40 bases in a 64-row pad layout: the rows=48 score pass (the
+    # end cell the gapless path reads) equals the full-L dirs pass, and the
+    # traceback equals the oracle's
     B, L, W = 128, 64, 80
-    q = np.full((B, L), 4, np.int8)
-    lens = rng.integers(8, 41, B)
-    for b in range(B):
-        q[b, : lens[b]] = rng.integers(0, 4, lens[b])
-    w = rng.integers(0, 5, (B, W)).astype(np.int8)
-    for b in range(0, B, 2):
-        n = int(lens[b]) - 4
-        w[b, 3 : 3 + n] = q[b, 1 : 1 + n]
+    q, w = _short_reads(7, B, L, W)
+    s_np, ie_np, je_np, dp = sw_batch(q, w, SC)
+    rc_np = traceback_batch(dp, ie_np, je_np, L)
     s0, ie0, je0, dirs0 = sw_align(q, w, SC)
     rc0 = sw_traceback(dirs0, ie0, je0, L, W)
-    s1, ie1, je1, packed = sw_align_pallas(q, w, SC, interpret=True, rows=48)
-    rc1 = sw_traceback_packed(packed, ie1, je1, L, W)
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-    np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
+    _assert_score((s_np, ie_np, je_np), (s0, ie0, je0))
+    np.testing.assert_array_equal(rc_np, np.asarray(rc0))
+    _assert_score((s_np, ie_np, je_np),
+                  sw_score_pallas(q, w, SC, rows=48, strip=16,
+                                  interpret=True))
 
 
 def test_rows_truncation_exact():
     # rows=48 over 64-padded queries whose real reads are <= 40 long: the
-    # truncated wavefront must equal the FULL DP (incl. tie-break positions)
+    # truncated DP must equal the FULL DP (incl. tie-break positions)
     # because pad-row cells can never win (see sw_score_pallas docstring)
-    rng = np.random.default_rng(4)
-    B, L, W = 256, 64, 80
-    q = np.full((B, L), 4, np.int8)
-    lens = rng.integers(8, 41, B)
-    for b in range(B):
-        q[b, : lens[b]] = rng.integers(0, 4, lens[b])
-    w = rng.integers(0, 5, (B, W)).astype(np.int8)
-    for b in range(0, B, 2):  # plant homology (incl. gapped) in half the rows
-        n = int(lens[b]) - 4
-        w[b, 3 : 3 + n] = q[b, 1 : 1 + n]
-        if b % 4 == 0 and n > 10:
-            w[b, 3 + n // 2] = (q[b, 1 + n // 2] + 1) % 4  # mid mismatch
-    s_np, ie_np, je_np, _ = sw_batch(q, w, SC, want_dirs=False)
-    s, ie, je = sw_score_pallas(q, w, SC, interpret=True, rows=48)
-    np.testing.assert_array_equal(s_np, np.asarray(s))
-    np.testing.assert_array_equal(ie_np, np.asarray(ie))
-    np.testing.assert_array_equal(je_np, np.asarray(je))
+    q, w = _short_reads(4, 256, 64, 80)
+    ref = sw_batch(q, w, SC, want_dirs=False)[:3]
+    _assert_score(ref, sw_score_pallas(q, w, SC, rows=48, interpret=True))
+
+
+@pytest.mark.gpu
+def test_compiled_parity(gpu):
+    # the kernel as compiled for the card, at the align step's widths
+    B, L, W = 1024, 128, 160
+    q, w = _short_reads(9, B, L, W, max_len=100)
+    ref = sw_batch(q, w, SC, want_dirs=False)[:3]
+    got = jax.jit(sw_score_pallas, static_argnames=("sc", "rows"))(
+        jax.device_put(q, gpu), jax.device_put(w, gpu), sc=SC, rows=104)
+    _assert_score(ref, got)
